@@ -1,6 +1,6 @@
-// vslam_native: host-side runtime support for the TPU SLAM framework.
+// vslam_native: host-side runtime support for the SLAM framework.
 //
-// The reference is a C++ system throughout; in the TPU-native redesign the
+// The reference is a C++ system throughout; in the array-program redesign the
 // compute path is JAX/XLA, and this library provides the native runtime
 // around it (the role the reference's srrg_core txt_io playback + OpenCV
 // imread pipeline played, slam_assembly.cpp:343-492):

@@ -1,4 +1,4 @@
-"""Micro-profile FAST detection sub-stages on TPU (batch 32). Diagnostic."""
+"""Micro-profile FAST detection sub-stages on the GPU (batch 32). Diagnostic."""
 
 import os
 import sys
@@ -21,9 +21,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update(
-        "jax_compilation_cache_dir", os.path.expanduser("~/.vslam_tpu_jax_cache")
-    )
+    from vslam_tpu.utils import compile_cache
+
+    compile_cache.enable()
     from vslam_tpu.frontend import detect
     from vslam_tpu.frontend.orb import box_blur
     from vslam_tpu.io import synthetic
@@ -64,17 +64,6 @@ def main():
     bench("box_blur_ms", lambda c: jax.vmap(
         lambda pair: (box_blur(pair[0].astype(jnp.float32), 2),
                       box_blur(pair[1].astype(jnp.float32), 2)))(c))
-
-    # pallas brief kernel alone on presmoothed
-    from vslam_tpu.frontend.pallas_brief import dense_bit_planes_pallas_batch
-    sm = jax.jit(lambda c: jax.vmap(lambda pair: jnp.stack(
-        [box_blur(pair[0].astype(jnp.float32), 2),
-         box_blur(pair[1].astype(jnp.float32), 2)]))(c))(chunk_dev)
-    sm = jax.block_until_ready(sm.reshape(-1, *sm.shape[2:]))
-
-    g = jax.jit(dense_bit_planes_pallas_batch)
-    jax.block_until_ready(g(sm))
-    out["pallas_brief_ms"] = round(1e3 * timeit(lambda: jax.block_until_ready(g(sm))) / B, 3)
 
     print(out)
 

@@ -1,4 +1,4 @@
-"""Decompose fused-step device time on the real TPU: batched chunk
+"""Decompose fused-step device time on the GPU: batched chunk
 front-end vs sequential track tail vs fully-fused chunk step.  In-session
 diagnostic only (not a driver artifact).
 """
@@ -25,9 +25,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update(
-        "jax_compilation_cache_dir", os.path.expanduser("~/.vslam_tpu_jax_cache")
-    )
+    from vslam_tpu.utils import compile_cache
+
+    compile_cache.enable()
     from vslam_tpu.io import synthetic
     from vslam_tpu.io.config import ParameterCollection
     from vslam_tpu.ops import camera as cam_ops

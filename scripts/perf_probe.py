@@ -1,4 +1,4 @@
-"""Quick TPU perf probe: headline 128-frame closed-loop fps + pure
+"""Quick GPU perf probe: headline 128-frame closed-loop fps + pure
 device-compute fps + stage table.  A fast-iteration subset of bench.py
 (same config) for in-session optimization work — NOT a driver artifact.
 
@@ -19,44 +19,24 @@ import numpy as np
 def main():
     import jax
 
-    jax.config.update(
-        "jax_compilation_cache_dir", os.path.expanduser("~/.vslam_tpu_jax_cache")
-    )
+    from vslam_tpu.utils import compile_cache
 
-    from vslam_tpu.io import synthetic
-    from vslam_tpu.io.config import ParameterCollection
-    from vslam_tpu.ops import camera as cam_ops
+    compile_cache.enable()
+
     from vslam_tpu.eval import trajectory as traj_eval
     from vslam_tpu.system.engine import SlamEngine
     from vslam_tpu.tracking.tracker import FusedPoseTracker
     from vslam_tpu.utils import log as log_mod
 
+    import bench
+
     repeat = 1
     if "--repeat" in sys.argv:
         repeat = int(sys.argv[sys.argv.index("--repeat") + 1])
 
-    cam = cam_ops.make_camera(fx=718.856, fy=718.856, cx=607.19, cy=185.22,
-                              baseline_m=0.5372, rows=376, cols=1241)
-    cfg = ParameterCollection()
-    cfg.framepoint_generation.capacity = 1024
-    cfg.framepoint_generation.bin_size_pixels = 16
-    cfg.world_map.minimum_distance_traveled_for_local_map = 1.5
-    cfg.world_map.minimum_number_of_frames_for_local_map = 3
-    cfg.relocalization.preliminary_minimum_interspace_queries = 8
-    cfg.relocalization.preliminary_minimum_matching_ratio = 0.08
-    cfg.relocalization.icp_minimum_number_of_inliers = 10
-    cfg.relocalization.icp_minimum_inlier_ratio = 0.3
-    cfg.graph_optimization.minimum_closure_residual_for_optimization_meters = 0.10
-    cfg.graph_optimization.minimum_closure_residual_for_optimization_degrees = 0.5
-    cfg.local_map.maximum_number_of_landmarks = 512
-    cfg.parallelism.frames_per_chunk = 32
-
-    n_frames = 128
-    radius = 13.0
     t0 = time.perf_counter()
-    poses = synthetic.circle_trajectory(n_frames, radius=radius)
-    world = synthetic.make_world(cam, n_points=7000, seed=0, poses=poses)
-    frames = [synthetic.render_frame(world, t)[:2] for t in range(n_frames)]
+    cam, cfg, world, frames = bench.make_closed_loop()
+    n_frames = len(frames)
     print(f"render: {time.perf_counter()-t0:.1f}s", file=sys.stderr)
 
     # warm

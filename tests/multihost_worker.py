@@ -2,8 +2,8 @@
 
 Each process owns 4 virtual CPU devices; jax.distributed.initialize stitches
 them into one 2-process global runtime, and the landmark-sharded Schur BA
-runs over the GLOBAL 8-device mesh — the exact code path a 2-host TPU pod
-uses (DCN-coordinated, mesh-topology-agnostic collectives).
+runs over the GLOBAL 8-device mesh — the exact code path a 2-host GPU
+cluster uses (mesh-topology-agnostic collectives).
 
 Usage: python tests/multihost_worker.py <coordinator_port> <process_id> <out>
 """

@@ -90,7 +90,7 @@ def test_ba_with_device_archived_observations(world_frames):
     quantization."""
     world, frames = world_frames
     eng = SlamEngine(CAM, make_cfg(True), landmark_capacity=16384)
-    eng.tracker._ship_uv4 = False  # force archive mode (TPU default)
+    eng.tracker._ship_uv4 = False  # force archive mode (the accelerator default)
     for l, r in frames:
         eng.process(l, r)
     eng._flush_tracker()

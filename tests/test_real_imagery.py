@@ -9,7 +9,7 @@ read-only fixtures, playing the role SURVEY.md §7.2 step 4 assigns to
   * FAST detection agreement with cv2.FastFeatureDetector on a real photo;
   * dense-BRIEF matching across a real overlapping pair must recover a
     dominant homography (cv2.findHomography RANSAC) with a solid inlier
-    count — descriptor bits computed by the TPU kernel are discriminative
+    count — descriptor bits computed by the dense-BRIEF planes are discriminative
     on real texture, not just on the synthetic splat worlds.
 """
 

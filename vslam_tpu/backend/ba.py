@@ -2,12 +2,12 @@
 
 Replaces the reference's g2o full-BA mode (GraphOptimizer::addPoseWithFactors
 + optimizeFactorGraph, src/map_optimization/graph_optimizer.cpp:319-409,
-459-488, single-threaded sparse CHOLMOD) with the TPU-native design from
+459-488, single-threaded sparse CHOLMOD) with the accelerator design from
 SURVEY.md §7.1: the landmark block of the Hessian is 3x3 block-diagonal, so
 landmark elimination is a vmapped batch of 3x3 inversions — embarrassingly
 parallel over landmarks, which is exactly the axis parallel/sharded_ba.py
 shards across devices.  The reduced camera system (6P x 6P, P = keyframes,
-small by TPU standards) is assembled by scatter-add and solved densely.
+small for an accelerator) is assembled by scatter-add and solved densely.
 
 Observation layout is grouped-by-landmark with a fixed max-observations pad
 (L, Omax): every per-landmark quantity is a clean vmap, and the cross-camera

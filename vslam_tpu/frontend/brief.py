@@ -1,17 +1,18 @@
 """Dense BRIEF-256: gather-free binary description for the whole image.
 
 The reference's default descriptor is plain (unrotated) BRIEF-256
-(base_framepoint_generator.cpp:184-197, descriptor_type "BRIEF").  On TPU
-the per-keypoint gather formulation (orb.py) is bottlenecked by ~3M random
-loads per frame; BRIEF's fixed integer offsets admit a dense formulation
-that is pure VPU work:
+(base_framepoint_generator.cpp:184-197, descriptor_type "BRIEF").  BRIEF's
+fixed integer offsets admit a dense formulation in place of per-keypoint
+gathers (orb.py):
 
-    bit_b(x) = [ S(x + o1_b) < S(x + o2_b) ]           (S = smoothed image)
+    bit_b(x) = [ S(x + o1_b) < S(x + o2_b) ]     (S = 5x5 box sum of the image)
 
 Each bit plane is one shifted-image comparison over the full image; 32
 planes pack into one uint32 map, eight maps hold all 256 bits.  Keypoint
 descriptors are then an 8-word row lookup — K x 8 loads instead of K x 3k.
-Measured ~40x faster than the gather path on TPU v5e at 376x1241.
+S is the box SUM, not the mean: comparing sums orders pixels as the means
+do, and the sum is computed without a division, so the bits are the same
+on every backend and do not depend on matmul precision.
 
 Orientation invariance is lost (as in the reference's default); the
 rotation-aware gather path remains available as descriptor_type "ORB256".
@@ -19,72 +20,75 @@ rotation-aware gather path remains available as descriptor_type "ORB256".
 
 from __future__ import annotations
 
-from functools import partial
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from vslam_tpu.frontend.orb import PATTERN_RADIUS, _make_pattern, box_blur
+from vslam_tpu.frontend import brief_gpu
+from vslam_tpu.frontend.orb import PATTERN_RADIUS, _make_pattern, box_blur, box_sum
+from vslam_tpu.ops import hamming
 
 # Integer BRIEF offsets from the same seeded pattern as the ORB path.
 _PAT = np.round(_make_pattern()).astype(np.int32)  # (256, 2, 2) [bit, pt, (dr, dc)]
 
 
-def _difference_filters() -> np.ndarray:
-    """(256, 1, P, P) one-hot difference filters: +1 at o2, -1 at o1, so
-    conv(img, filter_b) = S(x + o2_b) - S(x + o1_b) and
-    bit_b = [ conv > 0 ]."""
+def planes_from_pattern(smooth: jnp.ndarray, pat: np.ndarray) -> jnp.ndarray:
+    """(H, W) SMOOTHED image -> (8, H, W) uint32 packed BRIEF bit planes.
+
+    pat: (256, 2, 2) static integer offsets [bit, point, (dr, dc)].  Bit j
+    of word w is [ S(x + o1) < S(x + o2) ] for pattern row 32 * w + j; taps
+    outside the image read zero.  The 512 static slices, the compares and
+    the shift-or packing fuse into one elementwise loop.  This is the form
+    every platform but CUDA runs, and the reference of brief_gpu's kernel.
+    """
+    H, W = smooth.shape
     R = PATTERN_RADIUS
-    P = 2 * R + 1
-    f = np.zeros((256, 1, P, P), np.float32)
-    for b in range(256):
-        dr1, dc1 = _PAT[b, 0]
-        dr2, dc2 = _PAT[b, 1]
-        f[b, 0, R + dr1, R + dc1] += -1.0
-        f[b, 0, R + dr2, R + dc2] += 1.0
-    return f
+    padded = jnp.pad(smooth, R)
+
+    def tap(dr, dc):
+        return jax.lax.slice(padded, (R + dr, R + dc), (R + dr + H, R + dc + W))
+
+    words = []
+    for w in range(8):
+        acc = jnp.zeros((H, W), jnp.uint32)
+        for j in range(32):
+            (dr1, dc1), (dr2, dc2) = pat[w * 32 + j].tolist()
+            bit = (tap(dr1, dc1) < tap(dr2, dc2)).astype(jnp.uint32)
+            acc = acc | (bit << np.uint32(j))
+        words.append(acc)
+    return jnp.stack(words)
 
 
-_FILTERS = jnp.asarray(_difference_filters())  # (256, 1, P, P)
+def planes_numpy(smooth: np.ndarray, pat: np.ndarray) -> np.ndarray:
+    """Plain numpy reference of planes_from_pattern (the test oracle)."""
+    H, W = smooth.shape
+    R = PATTERN_RADIUS
+    sp = np.zeros((H + 2 * R, W + 2 * R), np.float32)
+    sp[R:-R, R:-R] = smooth
+    out = np.zeros((8, H, W), np.uint32)
+    for w in range(8):
+        for j in range(32):
+            (dr1, dc1), (dr2, dc2) = pat[w * 32 + j]
+            a = sp[R + dr1 : R + dr1 + H, R + dc1 : R + dc1 + W]
+            c = sp[R + dr2 : R + dr2 + H, R + dc2 : R + dc2 + W]
+            out[w] |= (a < c).astype(np.uint32) << np.uint32(j)
+    return out
 
 
 @jax.jit
 def dense_bit_planes(img: jnp.ndarray) -> jnp.ndarray:
-    """(H, W) image -> (8, H, W) uint32 packed BRIEF bit planes.
+    """(H, W) raw image -> (8, H, W) uint32 packed BRIEF bit planes.
 
-    Formulated as four 64-filter convolutions (one compact MXU op each —
-    a 512-op shifted-compare graph takes the compiler minutes and the VPU
-    longer than the systolic array takes to do the same work as im2col
-    matmuls); each chunk packs immediately to bound peak memory at
-    64 x H x W f32."""
-    smooth = box_blur(img, radius=2)
-    H, W = img.shape
-    x = smooth[None, None]  # NCHW
-    shifts = jnp.arange(32, dtype=jnp.uint32)
-    words = []
-    for chunk in range(4):  # 64 bits at a time -> one uint32 pair
-        filt = _FILTERS[chunk * 64 : (chunk + 1) * 64]
-        diff = jax.lax.conv_general_dilated(
-            x, filt, (1, 1),
-            padding=[(PATTERN_RADIUS, PATTERN_RADIUS)] * 2,
-            dimension_numbers=("NCHW", "OIHW", "NCHW"),
-            precision=jax.lax.Precision.DEFAULT,
-        )[0]  # (64, H, W)
-        bits = (diff > 0).astype(jnp.uint32)
-        lo = jnp.sum(bits[:32] << shifts[:, None, None], axis=0)
-        hi = jnp.sum(bits[32:] << shifts[:, None, None], axis=0)
-        words.extend([lo, hi])
-    return jnp.stack(words)
-
-
-def _use_pallas() -> bool:
-    """The shifted-compare Pallas kernel runs on TPU only; CPU (tests) and
-    other backends keep the conv formulation."""
-    try:
-        return jax.default_backend() not in ("cpu",)
-    except Exception:  # pragma: no cover - backend probing never fatal
-        return False
+    On a CUDA GPU the planes come from the Pallas-Triton tile kernel
+    (brief_gpu.py): it is bit-identical to planes_from_pattern, and XLA's
+    fusion of the 512 shifted taps was the front-end's largest kernel on
+    the H100 (PERF.md).  Every other platform runs planes_from_pattern.
+    """
+    return jax.lax.platform_dependent(
+        box_sum(img, radius=2),
+        cuda=lambda s: brief_gpu.planes_from_pattern_gpu(s[None], _PAT)[0],
+        default=lambda s: planes_from_pattern(s, _PAT),
+    )
 
 
 def describe_dense(img: jnp.ndarray, uv: jnp.ndarray) -> jnp.ndarray:
@@ -92,13 +96,7 @@ def describe_dense(img: jnp.ndarray, uv: jnp.ndarray) -> jnp.ndarray:
 
     img: (H, W) f32; uv: (K, 2) [col, row].  Returns (K, 8) uint32.
     """
-    if _use_pallas():
-        from vslam_tpu.frontend.pallas_brief import dense_bit_planes_pallas
-
-        planes = dense_bit_planes_pallas(box_blur(img, radius=2))
-    else:
-        planes = dense_bit_planes(img)  # (8, H, W)
-    return _gather_planes(planes, img.shape, uv)
+    return _gather_planes(dense_bit_planes(img), img.shape, uv)
 
 
 def _gather_planes(planes, shape, uv):
@@ -112,27 +110,17 @@ def dense_planes(img: jnp.ndarray) -> jnp.ndarray:
     """Packed BRIEF bit planes for ONE image: (8, H, W) uint32 (the RGB-D
     pipeline's variant of dense_planes_pair — depth mode has no right
     image to describe)."""
-    if _use_pallas():
-        from vslam_tpu.frontend.pallas_brief import dense_bit_planes_pallas
-
-        return dense_bit_planes_pallas(box_blur(img, 2))
     return dense_bit_planes(img)
 
 
 def dense_planes_pair(img_l, img_r) -> jnp.ndarray:
     """Packed BRIEF bit planes for a stereo pair: (2, 8, H, W) uint32.
 
-    One Pallas launch on TPU, the conv formulation elsewhere.  Keeping the
-    planes around lets later stages re-describe ARBITRARY pixel positions
-    with a single gather — the mechanism behind landmark recovery
-    (reference recoverPoints re-extracts descriptors at projected landmark
-    coordinates, stereo_framepoint_generator.cpp:683-869).
+    Keeping the planes around lets later stages re-describe ARBITRARY
+    pixel positions with a single gather — the mechanism behind landmark
+    recovery (reference recoverPoints re-extracts descriptors at projected
+    landmark coordinates, stereo_framepoint_generator.cpp:683-869).
     """
-    if _use_pallas():
-        from vslam_tpu.frontend.pallas_brief import dense_bit_planes_pallas_batch
-
-        sm = jnp.stack([box_blur(img_l, 2), box_blur(img_r, 2)])
-        return dense_bit_planes_pallas_batch(sm)  # (2, 8, H, W)
     return jnp.stack([dense_bit_planes(img_l), dense_bit_planes(img_r)])
 
 
@@ -142,20 +130,20 @@ def gather_descriptors(planes: jnp.ndarray, shape, uv: jnp.ndarray) -> jnp.ndarr
 
 
 # ---------------------------------------------------------------------------
-# Rotated-pattern-bank BRIEF ("BRIEF256R"): dense orientation-aware
-# description without per-keypoint gathers.
+# Rotated-pattern-bank BRIEF ("BRIEF256R"): orientation-aware description
+# from integer pattern banks.
 # ---------------------------------------------------------------------------
 #
 # ORB's steered BRIEF rotates the test pattern by each keypoint's
-# orientation.  The gather formulation (orb.py) pays K x ~1.5k random
-# loads; the dense-bank formulation instead quantizes orientation into
-# N_ROT_BANKS bins (OpenCV ORB quantizes to 12 degrees itself) and
-# computes the dense bit planes once PER BANK — each bank is the same
-# cheap shifted-compare program with a pre-rotated integer pattern.  A
-# keypoint takes its descriptor from the bank matching its local
-# orientation, read from a dense smoothed-gradient orientation map (the
-# first-moment direction, which coincides with ORB's intensity-centroid
-# direction for locally linear intensity).
+# orientation.  The rotated-bank formulation quantizes orientation into
+# N_ROT_BANKS bins (OpenCV ORB quantizes to 12 degrees itself), each bank
+# being the seeded pattern pre-rotated to integer offsets.  A keypoint
+# takes the bank matching its local orientation, read from a dense
+# smoothed-gradient orientation map (the first-moment direction, which
+# coincides with ORB's intensity-centroid direction for locally linear
+# intensity).  Its descriptor equals bank b's dense planes
+# (planes_from_pattern(smooth, _ROT_PATS[b])) read at the keypoint, but is
+# taken with K x 512 integer-offset loads instead of 16 full-image banks.
 
 N_ROT_BANKS = 16
 
@@ -179,48 +167,6 @@ def _rotated_int_patterns(n_banks: int = N_ROT_BANKS) -> np.ndarray:
 
 
 _ROT_PATS = _rotated_int_patterns()
-_ROT_FILTERS_CACHE: dict = {}
-
-
-def _bank_difference_filters(bank: int) -> jnp.ndarray:
-    if bank not in _ROT_FILTERS_CACHE:
-        R = PATTERN_RADIUS
-        P = 2 * R + 1
-        f = np.zeros((256, 1, P, P), np.float32)
-        pat = _ROT_PATS[bank]
-        for b in range(256):
-            dr1, dc1 = pat[b, 0]
-            dr2, dc2 = pat[b, 1]
-            f[b, 0, R + dr1, R + dc1] += -1.0
-            f[b, 0, R + dr2, R + dc2] += 1.0
-        _ROT_FILTERS_CACHE[bank] = jnp.asarray(f)
-    return _ROT_FILTERS_CACHE[bank]
-
-
-def _dense_bit_planes_bank(smooth: jnp.ndarray, bank: int) -> jnp.ndarray:
-    """(H, W) SMOOTHED image -> (8, H, W) planes under bank's rotation."""
-    if _use_pallas():
-        from vslam_tpu.frontend.pallas_brief import dense_bit_planes_pallas_pattern
-
-        return dense_bit_planes_pallas_pattern(smooth, bank)
-    H, W = smooth.shape
-    x = smooth[None, None]
-    shifts = jnp.arange(32, dtype=jnp.uint32)
-    filt_all = _bank_difference_filters(bank)
-    words = []
-    for chunk in range(4):
-        filt = filt_all[chunk * 64 : (chunk + 1) * 64]
-        diff = jax.lax.conv_general_dilated(
-            x, filt, (1, 1),
-            padding=[(PATTERN_RADIUS, PATTERN_RADIUS)] * 2,
-            dimension_numbers=("NCHW", "OIHW", "NCHW"),
-            precision=jax.lax.Precision.DEFAULT,
-        )[0]
-        bits = (diff > 0).astype(jnp.uint32)
-        lo = jnp.sum(bits[:32] << shifts[:, None, None], axis=0)
-        hi = jnp.sum(bits[32:] << shifts[:, None, None], axis=0)
-        words.extend([lo, hi])
-    return jnp.stack(words)
 
 
 def orientation_bin_map(smooth: jnp.ndarray,
@@ -241,25 +187,17 @@ def describe_dense_rotated(img: jnp.ndarray, uv: jnp.ndarray,
     """Oriented packed descriptors at keypoints via rotated pattern banks.
 
     img: (H, W) f32 (RAW image; smoothing happens here).
-    Returns (K, 8) uint32.
+    Returns (K, 8) uint32, bit-identical to gathering each keypoint's bank
+    planes (planes_from_pattern) at its rounded, clipped coordinates.
     """
-    smooth = box_blur(img, radius=2)
+    H, W = img.shape
+    R = PATTERN_RADIUS
+    smooth = box_sum(img, radius=2)
     bins_map = orientation_bin_map(smooth, n_banks)
-    kp_bins = _gather_planes(bins_map[None], img.shape, uv)[:, 0]  # (K,)
-    desc = jnp.zeros((uv.shape[0], 8), jnp.uint32)
-    for b in range(n_banks):
-        d_b = _gather_planes(_dense_bit_planes_bank(smooth, b), img.shape, uv)
-        desc = jnp.where((kp_bins == b)[:, None], d_b, desc)
-    return desc
-
-
-def describe_dense_pair(img_l, img_r, uv_l, uv_r):
-    """Both stereo images in one device program (one Pallas launch on TPU).
-
-    Returns (desc_l (K,8) uint32, desc_r (K,8) uint32).
-    """
-    planes = dense_planes_pair(img_l, img_r)
-    return (
-        _gather_planes(planes[0], img_l.shape, uv_l),
-        _gather_planes(planes[1], img_r.shape, uv_r),
-    )
+    c = jnp.clip(jnp.round(uv[:, 0]).astype(jnp.int32), 0, W - 1)
+    r = jnp.clip(jnp.round(uv[:, 1]).astype(jnp.int32), 0, H - 1)
+    pat = jnp.asarray(_rotated_int_patterns(n_banks))[bins_map[r, c]]
+    padded = jnp.pad(smooth, R)  # zero taps off the image, as the planes
+    vals = padded[R + r[:, None, None] + pat[..., 0],
+                  R + c[:, None, None] + pat[..., 1]]  # (K, 256, 2)
+    return hamming.pack_bits(vals[..., 0] < vals[..., 1])

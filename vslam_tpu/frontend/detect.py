@@ -81,9 +81,8 @@ def fast_score_map(
         return jnp.max(wsum, axis=0) == arc_len
 
     is_corner = arc_exists(bright) | arc_exists(dark)
-    # Sequential accumulation (not jnp.sum): bit-identical to the fused
-    # Pallas front-end kernel's tap loop (pallas_frontend.py), so the two
-    # paths agree exactly on the interior.
+    # Sequential accumulation in circle order: a fixed summation order, so
+    # the score does not depend on how a backend would tree-reduce a sum.
     bright_excess = jnp.zeros_like(img)
     dark_excess = jnp.zeros_like(img)
     hi = img + threshold
@@ -125,7 +124,7 @@ _GFTT_SCALE = 5.0e3
 
 def harris_score_map(img: jnp.ndarray, threshold: jnp.ndarray) -> jnp.ndarray:
     """Harris corner response det(M) - k*trace(M)^2 (reference detector
-    option "GFTT"/Harris family; pure conv/VPU work — no OpenCV).
+    option "GFTT"/Harris family; pure elementwise work — no OpenCV).
     """
     A, B, C = _structure_tensor(img)
     k = 0.04
@@ -178,7 +177,7 @@ def dog_score_map(img: jnp.ndarray, threshold: jnp.ndarray) -> jnp.ndarray:
     SIFT/KAZE-class float blob detector of the fork's pluggable family
     (reference base_framepoint_generator.cpp:94-113 wraps
     cv::xfeatures2d::SIFT; here the scale-space extremum search runs as
-    stacked separable convs + one 3D max/min window — pure VPU work).
+    stacked separable convs + one 3D max/min window).
 
     A pixel scores when it is a 26-neighborhood (3x3x3 in x, y, scale)
     extremum of the DoG stack on an interior band and its contrast clears
@@ -225,7 +224,7 @@ def dog_score_map(img: jnp.ndarray, threshold: jnp.ndarray) -> jnp.ndarray:
 # explicit steps with the Chebyshev tau ladder
 # tau_j = tau_max / (2 cos^2(pi (2j+1) / (4n+2))), which reach evolution
 # time tau_max n(n+1)/3 per cycle while remaining stable — pure
-# shifted-slice VPU work, no solvers.
+# shifted-slice elementwise work, no solvers.
 # ---------------------------------------------------------------------------
 
 # Evolution-time ladder from the SIFT-style sigma ladder: t = sigma^2 / 2.
@@ -399,9 +398,7 @@ def _detect_level(img, threshold, bin_size, capacity, border, detector):
 
 def keypoints_from_score(score, bin_size, capacity, border):
     """Binning tail of the detection pipeline: border mask -> per-bin
-    argmax -> top-K over an ALREADY-NMS'd score map (shared by the XLA
-    path above and the fused Pallas front-end kernel, which emits the
-    NMS'd score map directly — pallas_frontend.py)."""
+    argmax -> top-K over an ALREADY-NMS'd score map."""
     H, W = score.shape
 
     # Mask out the border (descriptor patch margin).

@@ -1,9 +1,9 @@
 """Stereo epipolar and projective descriptor matching kernels.
 
 Two instantiations of the masked-Hamming-argmin primitive (ops/hamming.py,
-MXU int8-matmul path: at frame capacity the popcount path materializes a
-K^2 x 8-word XOR intermediate — ~33 MB of HBM traffic — while the bit
-matmul rides the systolic array),
+int8-matmul path: at frame capacity the popcount path materializes a
+K^2 x 8-word XOR intermediate — ~33 MB of device-memory traffic — while
+the bit matmul is one integer GEMM),
 replacing the reference's serial matchers:
 
   match_stereo      the row-sorted exhaustive epipolar sweep

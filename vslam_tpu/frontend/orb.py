@@ -48,19 +48,27 @@ DISK_DR = jnp.asarray(_yy.astype(np.float32))
 DISK_DC = jnp.asarray(_xx.astype(np.float32))
 
 
-def box_blur(img: jnp.ndarray, radius: int = 2) -> jnp.ndarray:
-    """Separable box blur (ORB smooths with a box filter over the integral
-    image); edge-replicated, normalized.
+def box_sum(img: jnp.ndarray, radius: int = 2) -> jnp.ndarray:
+    """Separable (2r+1)^2 box SUM, edge-replicated: rows, then columns,
+    each added in a fixed order with no division, so every backend
+    computes the same bits (a division by a constant may become a
+    multiplication by its reciprocal on one backend and not another).
 
-    Written as shifted-slice sums, NOT lax.conv: XLA lowers single-channel
-    convolutions to a catastrophic MXU layout on TPU (~25 ms per 376x1241
-    image where the shift-add fusion takes ~50 us)."""
+    Written as shifted-slice sums, NOT lax.conv: the shift-adds fuse into
+    one elementwise pass, where a single-channel convolution would go to
+    a matmul-shaped library kernel."""
     k = 2 * radius + 1
     H, W = img.shape
     pad = jnp.pad(img, radius, mode="edge")
-    rows = sum(pad[i : i + H, :] for i in range(k)) / k  # (H, W + 2r)
-    out = sum(rows[:, j : j + W] for j in range(k)) / k
-    return out
+    rows = sum(pad[i : i + H, :] for i in range(k))  # (H, W + 2r)
+    return sum(rows[:, j : j + W] for j in range(k))
+
+
+def box_blur(img: jnp.ndarray, radius: int = 2) -> jnp.ndarray:
+    """Separable box blur (ORB smooths with a box filter over the integral
+    image); edge-replicated, normalized."""
+    k = 2 * radius + 1
+    return box_sum(img, radius) / (k * k)
 
 
 def _bilinear(img: jnp.ndarray, r: jnp.ndarray, c: jnp.ndarray) -> jnp.ndarray:

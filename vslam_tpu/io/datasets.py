@@ -4,8 +4,8 @@ Replaces the reference's srrg txt_io message-file playback
 (SLAMAssembly::loadCamerasFromMessageFile + playbackMessageFile,
 slam_assembly.cpp:99-206,343-492) with direct readers for the public
 dataset layouts named in its configurations/ directory.  Each loader is an
-iterator of frames plus a CameraParams; image decoding is cv2 on the host
-(overlapped with device compute by the engine's double-buffered prefetch).
+iterator of frames plus a CameraParams; images are decoded on the host by
+the native library (native/), with cv2 as the fallback.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from vslam_tpu.ops import camera as cam_ops
 
 try:
     import cv2
-except ImportError:  # pragma: no cover - cv2 ships in this environment
+except ImportError:  # the native decoder (native/) reads PNG and PGM
     cv2 = None
 
 
@@ -38,10 +38,13 @@ def _imread_gray(path: str) -> np.ndarray:
     from vslam_tpu.utils import native
 
     img = native.decode_image(path)
-    if img is None:
+    if img is None and cv2 is not None:
         img = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
     if img is None:
-        raise FileNotFoundError(path)
+        raise FileNotFoundError(
+            f"{path}: missing, or no decoder for it (the native library "
+            "in native/ builds with make; cv2 is the fallback)"
+        )
     if img.ndim == 3:
         img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
     return img.astype(np.float32)

@@ -1,6 +1,6 @@
 """Per-frame state and the fused front-end / tracking device programs.
 
-FrameState is the TPU-native replacement for the reference's
+FrameState is the array-program replacement for the reference's
 Frame + FramePoint object graph (src/types/frame.h:92-106,
 src/types/frame_point.h:18-203): a fixed-capacity SoA pytree with a valid
 mask; the pointer-based temporal track (`previous`/`next`) becomes the
@@ -32,9 +32,8 @@ from vslam_tpu.frontend import brief, detect, matching, orb
 
 
 def _describe(img, uv, descriptor: str):
-    """Descriptor dispatch: dense BRIEF (reference default, gather-free,
-    ~40x faster on TPU), dense rotated-bank BRIEF (orientation-aware), or
-    rotation-aware gather ORB."""
+    """Descriptor dispatch: dense BRIEF (reference default, gather-free),
+    rotated-bank BRIEF (orientation-aware), or rotation-aware gather ORB."""
     if descriptor == "ORB256":
         return orb.describe(img, uv)
     if descriptor == "BRIEF256R":
@@ -43,11 +42,6 @@ def _describe(img, uv, descriptor: str):
 from vslam_tpu.ops import camera as cam_ops
 from vslam_tpu.ops import lie
 from vslam_tpu.solve import aligners, gn
-
-# Trace-time switch for the fused Pallas detection/description kernel
-# (pallas_frontend.py) on TPU; the staged path stays available for A/B
-# measurement and as the fallback for non-FAST detectors / multi-octave.
-_ENABLE_FUSED_FRONTEND = True
 
 
 class FrameState(NamedTuple):
@@ -86,9 +80,8 @@ def empty_frame(capacity: int) -> FrameState:
 def stable_partition_perm(valid: jnp.ndarray) -> jnp.ndarray:
     """Permutation putting valid rows first (stable), via cumsum + scatter.
 
-    Equivalent to argsort(~valid, stable=True) but O(K) scatter instead of
-    a sort — sorts over the fused state are serialized loops on TPU
-    (~1 ms for 1024 rows, measured on v5e)."""
+    Equivalent to argsort(~valid, stable=True) but an O(K) cumsum and
+    scatter instead of a sort."""
     k = valid.shape[0]
     rank_v = jnp.cumsum(valid.astype(jnp.int32)) - 1
     n_valid = jnp.sum(valid.astype(jnp.int32))
@@ -158,53 +151,6 @@ def stereo_frontend_core(
     (2, 8, H, W) dense descriptor planes for downstream re-description at
     arbitrary coordinates (landmark recovery).  octaves > 1 detects and
     describes over a 2x image pyramid (scale robustness)."""
-    d_up = detector.upper()
-    if (
-        _ENABLE_FUSED_FRONTEND
-        and descriptor == "BRIEF256"
-        and octaves == 1
-        and d_up in ("FAST", "FAST9", "AGAST", "FAST12")
-        and brief._use_pallas()
-    ):
-        # Fused TPU front-end: ONE Pallas pass computes box blur + BRIEF
-        # planes + NMS'd FAST scores for both images (pallas_frontend.py;
-        # interior-bit-exact vs the staged path below, ~3.3x faster).
-        from vslam_tpu.frontend import pallas_frontend
-
-        planes, score, rowmax, rowarg = (
-            pallas_frontend.fast_brief_frontend_pair(
-                jnp.stack([img_l, img_r]).astype(jnp.float32),
-                threshold,
-                arc_len=12 if d_up == "FAST12" else 9,
-                border=border,
-                bin_size=bin_size,
-            )
-        )
-        H, W = img_l.shape
-
-        def _kp(b):
-            if bin_size == pallas_frontend._BAND:
-                uv, s, va = pallas_frontend.keypoints_from_band_reduction(
-                    rowmax[b], rowarg[b], H, W, bin_size, capacity
-                )
-            else:
-                uv, s, va = detect.keypoints_from_score(
-                    score[b], bin_size, capacity, border
-                )
-            return detect.Keypoints(
-                uv=uv, score=s, valid=va,
-                octave=jnp.zeros(capacity, jnp.int32),
-            )
-
-        kl, kr = _kp(0), _kp(1)
-        dl = brief.gather_descriptors(planes[0], img_l.shape, kl.uv)
-        dr = brief.gather_descriptors(planes[1], img_r.shape, kr.uv)
-        if not want_planes:
-            planes = None
-        return _stereo_frontend_tail(
-            cam, kl, kr, dl, dr, planes, max_hamming_stereo, epipolar_tol,
-            min_disparity, max_disparity, capacity, want_planes,
-        )
     kl = detect.detect_keypoints(img_l, threshold, bin_size, capacity, border,
                                  detector, octaves=octaves)
     kr = detect.detect_keypoints(img_r, threshold, bin_size, capacity, border,
@@ -229,18 +175,8 @@ def stereo_frontend_core(
         planes = brief.dense_planes_pair(img_l, img_r)
         dl = brief.gather_descriptors(planes[0], img_l.shape, kl.uv)
         dr = brief.gather_descriptors(planes[1], img_r.shape, kr.uv)
-    return _stereo_frontend_tail(
-        cam, kl, kr, dl, dr, planes, max_hamming_stereo, epipolar_tol,
-        min_disparity, max_disparity, capacity, want_planes,
-    )
 
-
-def _stereo_frontend_tail(cam, kl, kr, dl, dr, planes, max_hamming_stereo,
-                          epipolar_tol, min_disparity, max_disparity,
-                          capacity, want_planes):
-    """Shared stereo front-end tail: epipolar match -> triangulation ->
-    compaction -> FrameState (used by both the staged and the fused-Pallas
-    detection/description paths)."""
+    # Epipolar match -> triangulation -> compaction -> FrameState.
     # Matches below min_disparity are KEPT as temporary points (reference
     # unreliable framepoints): disparity gate opens down to 0, reliability
     # records whether proper stereo triangulation was possible.
@@ -443,7 +379,7 @@ def track_and_align(
         weight=weights,
     )
     # Analytic-Jacobian solver: identical semantics to the generic
-    # stereo_uv_align (asserted in tests), ~5x cheaper per round on TPU.
+    # stereo_uv_align (asserted in tests), with no autodiff in the loop.
     res = aligners.stereo_uv_align_fast(cam, data, matched, T_guess, gn_config)
 
     prev_to_cur = jnp.where(matched, m.cur_idx, -1).astype(jnp.int32)

@@ -1,6 +1,6 @@
 """Device-resident landmark table with host-side slot allocation.
 
-The TPU-native replacement for the reference's heap-allocated Landmark
+The array-program replacement for the reference's heap-allocated Landmark
 objects and their per-landmark Gauss-Newton refinement
 (src/types/landmark.h:20-35, landmark.cpp:66-167): fixed-capacity device
 arrays (SoA), batched information-form GN updates (solve/aligners.py
@@ -201,8 +201,7 @@ def spawn_and_update_observed(
     """Fused landmark spawn + batched GN refinement: ONE scatter per table
     field instead of spawn_landmarks + update_observed's separate passes.
 
-    TPU scatters serialize per row (~0.2 us each); the split pair costs
-    13 full-table scatters per frame, this does 8.  Semantics match
+    The split pair costs 13 full-table scatters per frame, this does 8.  Semantics match
     spawn_landmarks followed by update_observed exactly: fresh rows are
     initialized (n_updates=1, H=0, origin, unprotected) and then receive
     their first observation update like any other observed landmark.
@@ -234,9 +233,8 @@ def spawn_and_update_observed(
     new_nup = jnp.where(obs, base_nup + 1, table.n_updates[tgt])
     new_origin = jnp.where(fresh, origin_kf, table.origin_kf[tgt])
     # Predicated ADD-deltas (collision-safe: unused rows alias slot 0 and
-    # add zero, cf. spawn_landmarks), PACKED into 3 scatters: TPU scatters
-    # cost ~0.13 ms per 1024 rows regardless of row width, so the f32
-    # fields ride one (K, 12) scatter, the int/flag fields one (K, 5)
+    # add zero, cf. spawn_landmarks), PACKED into 3 scatters: a scatter's
+    # cost depends little on row width, so the f32 fields ride one (K, 12) scatter, the int/flag fields one (K, 5)
     # scatter and the descriptors one (K, 8) scatter — 3 table passes
     # instead of 8 (the concat/split round trips are contiguous copies,
     # ~us at this table size).

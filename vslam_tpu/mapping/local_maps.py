@@ -1,6 +1,6 @@
 """Keyframes / local maps and the world map bookkeeping.
 
-TPU-native redesign of LocalMap + WorldMap (src/types/local_map.cpp:27-96,
+Array-program redesign of LocalMap + WorldMap (src/types/local_map.cpp:27-96,
 world_map.cpp:50-478): a LocalMap is a keyframe-anchored record holding the
 slots + keyframe-frame snapshot positions + packed descriptor block of the
 landmarks seen in its window — the descriptor block is exactly the matrix

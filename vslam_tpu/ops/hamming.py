@@ -8,12 +8,13 @@ reference's three separate matchers:
   - windowed projective search (intensity_feature_matcher.cpp:81-148)
   - HBST loop-closure tree     (relocalizer.cpp:55-70)
 
-Two codepaths:
-  * popcount path — jax.lax.population_count on the XOR of word pairs; exact
-    and cheap on the VPU for frame-sized sets (K ~ 1k).
-  * MXU path — unpack bits to int8 in {0,1}; dist = r_q + r_db - 2 q.db via
-    an int8 matmul on the systolic array; used for the large sharded
-    loop-closure database where the problem is genuinely matmul-shaped.
+Two codepaths, both exact:
+  * popcount path — jax.lax.population_count on the XOR of word pairs;
+    cheap elementwise work for frame-sized sets (K ~ 1k).
+  * matmul path — unpack bits to int8 in {0,1}; dist = r_q + r_db - 2 q.db
+    via an int8 matmul with int32 accumulation (a library integer GEMM);
+    used for the large sharded loop-closure database where the problem is
+    genuinely matmul-shaped.
 """
 
 from __future__ import annotations
@@ -56,12 +57,12 @@ def hamming_matrix(q: jnp.ndarray, db: jnp.ndarray) -> jnp.ndarray:
 
 
 def hamming_matrix_mxu(q: jnp.ndarray, db: jnp.ndarray) -> jnp.ndarray:
-    """Distance matrix via int8 matmul (MXU path) for large databases.
+    """Distance matrix via int8 matmul for large databases.
 
     d(a,b) = popcount(a) + popcount(b) - 2 * <bits_a, bits_b>.
-    The inner product of {0,1} bit vectors rides the systolic array as an
-    (Q,256)x(256,D) int8 matmul — the "descriptor matmul" design from
-    SURVEY.md §2.5.
+    The inner product of {0,1} bit vectors is an (Q,256)x(256,D) int8
+    matmul accumulated in int32, so the result equals hamming_matrix
+    exactly — the "descriptor matmul" design from SURVEY.md §2.5.
     """
     qb = unpack_bits(q).astype(jnp.int8)
     dbb = unpack_bits(db).astype(jnp.int8)
@@ -79,10 +80,9 @@ def hamming_matrix_mxu(q: jnp.ndarray, db: jnp.ndarray) -> jnp.ndarray:
 def min_encode(dist, mask, axis):
     """Fused (min, argmin) via a single int32 min reduction.
 
-    Variadic argmin reduces are pathologically slow on TPU (~30x a plain
-    min, measured on v5e: 0.92 ms vs 0.03 ms over a 1024^2 int32 matrix);
-    encoding the index into the value — enc = d * N + i with d <= SENT —
-    turns (min, argmin) into one vectorized min.  d * N + i stays within
+    Encoding the index into the value — enc = d * N + i with d <= SENT —
+    turns (min, argmin) into one plain min reduction instead of a
+    variadic (value, index) reduce.  d * N + i stays within
     int32 for N up to 2^31 / SENT ≈ 4.1M rows (asserted at trace time).
     Returns (best_dist f32, best_idx int32) along `axis`.
     """

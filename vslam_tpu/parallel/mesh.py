@@ -1,9 +1,11 @@
 """Device mesh & collectives layer.
 
 The reference has no distributed backend at all (SURVEY.md §2.9); this is
-the new framework's first-class replacement: a named `jax.sharding.Mesh`
-over the TPU slice, with `shard_map`-partitioned kernels communicating via
-XLA collectives (psum / all_gather) that ride ICI within a slice.
+the new framework's first-class replacement: a flat, named
+`jax.sharding.Mesh` over the visible devices, with `shard_map`-partitioned
+kernels communicating via XLA collectives (psum / pmin / all_gather).  On
+a multi-GPU host every card reaches every other one over NVLink at the
+same rate, so a 1-D mesh loses nothing to topology.
 
 Axis convention:
   "lm"  — landmark/database parallelism: landmark tables, BA landmark

@@ -4,7 +4,7 @@ The flagship distributed component (SURVEY.md §2.9, BASELINE north star):
 landmarks — and their grouped observations — are sharded across the "lm"
 mesh axis.  Each device linearizes its landmark shard, eliminates its 3x3
 landmark blocks, and assembles a PARTIAL reduced camera system; one `psum`
-over ICI combines the partials into the replicated 6P x 6P system, which
+across the mesh combines the partials into the replicated 6P x 6P system, which
 every device solves redundantly (P is small); landmark back-substitution
 then happens shard-locally with zero further communication.
 
@@ -85,7 +85,7 @@ def bundle_adjust_sharded(
             S, b_S, Winv, b_l, Y, chi2 = ba_mod.build_reduced_system(
                 cam, T, p, config
             )
-            # The single ICI collective of the iteration: combine partial
+            # The single collective of the iteration: combine partial
             # reduced systems from every landmark shard.
             S = jax.lax.psum(S, axis_name)
             b_S = jax.lax.psum(b_S, axis_name)

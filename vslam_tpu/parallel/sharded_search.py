@@ -87,8 +87,7 @@ def search_sharded_top2(
     def run(q, db_shard, valid_shard):
         dist = hamming.hamming_matrix_mxu(q, db_shard)
         # Local (best, runner-up) via two min-encode passes — top_k lowers
-        # to a full per-row sort and variadic argmin is pathologically slow
-        # on TPU (see ops/hamming.min_encode).
+        # to a full per-row sort (see ops/hamming.min_encode).
         d1_f, l1 = hamming.min_encode(dist, valid_shard[None, :], axis=1)
         cols = jax.lax.broadcasted_iota(jnp.int32, dist.shape, 1)
         mask2 = valid_shard[None, :] & (cols != l1[:, None])

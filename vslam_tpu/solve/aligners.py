@@ -117,8 +117,8 @@ def _stereo_r_J_analytic(cam: cam_ops.CameraParams, p: jnp.ndarray,
     p: (N, 3) points in the CURRENT camera frame; meas: (N, 4).
     Returns (r (N,4), J (N,4,6), z (N,)).  The autodiff path
     (_local_residual + jacfwd through exp_se3) is exact too but expands to
-    ~10x the op count — on TPU each GN round is op-issue-latency bound,
-    so the closed form is what makes the per-frame solve cheap.
+    ~10x the op count, so the closed form is what makes the per-frame
+    solve cheap.
     """
     x, y, z = p[..., 0], p[..., 1], p[..., 2]
     zc = jnp.maximum(z, 1e-6)
@@ -155,8 +155,7 @@ def stereo_uv_align_fast(
 
     Same semantics as stereo_uv_align (robust GN to convergence, then
     inlier-only refinement with collapse rejection) but each round is a
-    handful of fused vector ops instead of a vmapped-autodiff expansion —
-    ~5x cheaper per round on TPU where round cost is op-issue bound.
+    handful of fused vector ops instead of a vmapped-autodiff expansion.
     """
     p_prev, meas, weight = jax.lax.optimization_barrier(
         (data.p_prev, data.meas, data.weight)

@@ -1,6 +1,6 @@
 """FAST-ICP: Anderson-accelerated point-to-point ICP on SE(3).
 
-TPU-native redesign of the fork's signature closure aligner
+Array-program redesign of the fork's signature closure aligner
 (src/aligners/fast_aligner.cpp:105-315 + AndersonAcceleration.h): the
 fixed-point iteration is one IRLS-weighted Procrustes solve per round
 (reference point_to_point, fast_aligner.cpp:282-315), and type-II Anderson

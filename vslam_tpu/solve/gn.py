@@ -9,7 +9,7 @@ its four subclasses) plus the per-landmark refinement
 
 - residuals are vmapped over measurements (the reference's serial
   per-point `linearize` loops become one batched Jacobian evaluation);
-- H = J^T Omega J and b = J^T Omega r are einsum reductions (MXU-shaped);
+- H = J^T Omega J and b = J^T Omega r are einsum reductions (matmul-shaped);
 - the robust kernel is the reference's error-clamping reweighting
   (omega *= kernel/chi2 beyond the threshold, stereouv_aligner.cpp:127-134);
 - iteration runs under lax.while_loop with damping, so the whole solve is
@@ -40,8 +40,8 @@ class GNConfig(NamedTuple):
     tolerance: float = 1e-4  # stop when |delta chi2| / chi2 below this
     step_tolerance: float = 1e-3  # ...AND the GN step norm is below this
     # Inlier-only refinement rounds (converge()): each while-loop round
-    # costs ~60-100 us of serial latency on TPU, and the solve is
-    # re-entered every frame — 4 rounds covers the post-outlier-rejection
+    # is serial latency, and the solve is re-entered every frame — 4
+    # rounds covers the post-outlier-rejection
     # correction the reference's inlier phase does (it too breaks on the
     # first sub-tolerance round, stereouv_aligner.cpp:225-236).
     refine_iterations: int = 4
@@ -65,9 +65,8 @@ def _robust_weights(chi2: jnp.ndarray, kernel: jnp.ndarray) -> jnp.ndarray:
 def inv3(A: jnp.ndarray) -> jnp.ndarray:
     """Closed-form 3x3 inverse via the adjugate — pure elementwise ops.
 
-    XLA's Cholesky/LU HLOs lower to serialized loops on TPU (~0.4 ms per
-    6x6 solve measured on v5e); for the 3x3/6x6 systems of this codebase
-    closed forms are both exact and ~100x cheaper, and they vmap cleanly.
+    For the 3x3/6x6 systems of this codebase closed forms are exact,
+    need no factorization library call, and vmap cleanly.
     """
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
@@ -177,9 +176,7 @@ def gauss_newton(
     # Materialize the measurement set BEFORE the iteration loops: without
     # the barrier XLA fuses the (expensive) producer chain — the windowed
     # Hamming match and its gathers in the fused tracker — INTO the
-    # while-loop body and recomputes it every GN round (~0.3 ms x ~10
-    # rounds measured on v5e; 3.9 ms vs 1.2 ms for the same solve on
-    # materialized inputs).
+    # while-loop body and recomputes it every GN round.
     data, mask = jax.lax.optimization_barrier((data, mask))
 
     batched_res = jax.vmap(residual_fn, in_axes=(None, 0))
@@ -242,8 +239,8 @@ def gauss_newton(
     # Phase 2: inlier-only refinement rounds with the same chi2-delta early
     # exit as phase 1 (reference `converge` breaks the inlier loop on
     # convergence too, stereouv_aligner.cpp:225-236 — a fixed round count
-    # would burn ~60 us/round of while-loop latency on TPU after the
-    # typical 2-3 rounds have converged).
+    # would spend while-loop rounds after the typical 2-3 rounds have
+    # converged).
     def refine_cond(state):
         _, prev_chi2, chi2, it, _, step = state
         rel = jnp.abs(prev_chi2 - chi2) / jnp.maximum(chi2, 1e-12)

@@ -132,12 +132,12 @@ def build_window_problem(engine, window: int = WINDOW, omax: int = OMAX):
     if len(slots) < 16:
         return None
 
-    # Accelerator bucket floor 2048: the TPU backend has no persistent
-    # compile cache and each landmark-bucket size costs a multi-second
-    # compile once per process; one big bucket covers the production
-    # window (16 kf x 512 snapshot rows) and the padded rows are masked
-    # vmap lanes the chip eats for free.  CPU (the test harness) keeps
-    # tight buckets — the padding would be real scalar work there.
+    # Accelerator bucket floor 2048: each landmark-bucket size is one more
+    # compiled program, and one big bucket covers the production window
+    # (16 kf x 512 snapshot rows) with the padded rows as masked vmap
+    # lanes.  CPU (the test harness) keeps tight buckets — the padding
+    # would be real scalar work there.  Re-tuning the floor for the GPU
+    # is open work (ROADMAP A5).
     floor = 6 if jax.default_backend() == "cpu" else 11
 
     def pow2(x):

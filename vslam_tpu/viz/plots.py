@@ -2,7 +2,7 @@
 
 The reference renders live Qt/OpenGL viewers (src/visualization/
 image_viewer.cpp, map_viewer.cpp); real-time display is explicitly a
-non-goal (reference README.md:7), so the TPU-native equivalent writes the
+non-goal (reference README.md:7), so the equivalent here writes the
 same content as image/plot files: framepoint overlays colored by landmark
 state with track lines (image_viewer.cpp:84-155 parity) and top-down /
 3D map views with the trajectory, keyframes and landmarks
